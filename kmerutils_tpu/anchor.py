@@ -8,7 +8,7 @@ the reference's exact key/value string encodings (redisbase.rs:29-196) — the
 store backend is pluggable (in-memory dict by default, a real redis client if
 the ``redis`` package is importable).
 
-TPU form: all windows of all reads are rows of one [n_windows, window_size]
+Device form: all windows of all reads are rows of one [n_windows, window_size]
 kmer-slot matrix fed to the batched bottom-k kernel — the sliding-window loop
 vanishes.
 """

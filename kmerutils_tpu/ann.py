@@ -2,9 +2,9 @@
 
 The reference hands signatures to hnsw_rs (Hnsw<u32, DistHamming>,
 /root/reference/src/bin/datasketcher.rs:156-195,263-309) and dumps the graph.
-The TPU-native counterpart: the signature matrix lives on device and neighbor
+The device counterpart: the signature matrix lives on device and neighbor
 search is a tiled all-pairs slot-equality reduction (DistHamming on sketch
-slots) + top-k — dense compare ops the VPU eats, no pointer-chasing graph.
+slots) + top-k — dense elementwise compare ops, no pointer-chasing graph.
 For huge corpora the tiling streams blocks through HBM; signatures also
 round-trip through the reference-format dump (io/formats.py) so an external
 HNSW can consume them unchanged.

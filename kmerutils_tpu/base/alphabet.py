@@ -103,6 +103,5 @@ def base_counts(codes, valid_mask=None):
     one_hot = (codes[..., None] == jnp.arange(4, dtype=codes.dtype))
     if valid_mask is not None:
         one_hot = one_hot & valid_mask[..., None]
-    # int32 accumulation: reads are < 2^31 bases, and the emulated-i64
-    # reduction makes the TPU compile of this one-hot sum take minutes
+    # int32 accumulation: reads are < 2^31 bases
     return one_hot.sum(axis=-2, dtype=jnp.int32)

@@ -14,7 +14,7 @@ k-mer of every read materializes in one shot:
 
   and the k-mer is win32(p) >> (32-2k).  The gather indices p>>4 and shifts
   2*(p&15) depend only on p, so they are trace-time constants — XLA sees two
-  static gathers plus a handful of VPU lane ops per k-mer.  For k > 16 the
+  static gathers plus a handful of elementwise ops per k-mer.  For k > 16 the
   same trick runs on a 64-bit window built from three words.
 
 k-mer *values* are bit-identical to the reference's compressed values
@@ -46,7 +46,7 @@ def kmers_u32(batch: ReadBatch, k: int):
     Gather-free: word i covers the 16 start positions 16i..16i+15, whose
     32-bit windows are (w[i] << 2j) | (w[i+1] >> (32-2j)) for j = 0..15 — a
     [n, n_words-1, 16] broadcast of shifts (the shift amount is a trace-time
-    constant per lane), reshaped to the position axis.  No gathers, pure VPU.
+    constant per lane), reshaped to the position axis.  No gathers, pure elementwise work.
     """
     if not 1 <= k <= 16:
         raise ValueError("kmers_u32 requires 1 <= k <= 16")

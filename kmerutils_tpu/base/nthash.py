@@ -5,7 +5,7 @@ implementations macro-generated for 2-bit kmers in base/kmer.rs:45-145.  Same
 seeds (nthash.rs:17-20), same MULTISEED/MULTISHIFT multi-hash derivation
 (nthash.rs:10-13,63-72), same canonical (min(fhash, rhash), strand) rule.
 
-TPU-native formulation: the reference cycles h' = rotl1(h) ^ rotl(seed_out,k)
+Device formulation: the reference cycles h' = rotl1(h) ^ rotl(seed_out,k)
 ^ seed_in, one position at a time.  That recurrence has the closed form
 
     fhash(p) = XOR_{i=0..k-1} rotl(seed[b_{p+i}], k-1-i)

@@ -8,7 +8,7 @@ Two layers:
   2-byte descriptor [nb_bits_by_base, nb_bases_in_last_byte].  Used for format
   parity (dump/reload, golden tests); never on the hot path.
 
-* :class:`ReadBatch` — the TPU-native form: a [n_reads, W] uint32 tensor where
+* :class:`ReadBatch` — the device form: a [n_reads, W] uint32 tensor where
   each word holds 16 consecutive 2-bit bases, first base in the highest bits,
   plus an int32 length vector.  This layout makes k-mer extraction a pair of
   static gathers + shifts (see base/kmer.py) and keeps HBM traffic at 2

@@ -4,7 +4,7 @@ Capability twin of the reference counting runtime
 (/root/reference/src/base/kmercount.rs): KmerCounter (cuckoo + counting-bloom,
 :70-288), KmerFilter1 unicity tracking (:985-1123) and the dump drivers.  The
 reference's data structures are pointer-chasing filters probed once per kmer —
-a shape TPUs cannot express.  The TPU-native replacement is:
+a shape batched tensor code cannot express.  The device replacement is:
 
     canonical kmers (+ coords)  →  radix-friendly sort  →  run boundaries
     →  per-run counts (segment reduction)
@@ -75,8 +75,7 @@ def _flatten_valid(kmers, valid):
 
 
 def _run_lengths_1d(s, is_real):
-    """Run length at every position of a sorted 1-D array via two scans
-    (no segment-sum, no scatter — those measure 10-30x slower on TPU)."""
+    """Run length at every position of a sorted 1-D array via two scans."""
     n = s.shape[0]
     new_run = jnp.concatenate([jnp.ones((1,), bool), s[1:] != s[:-1]]) & is_real
     idx = jnp.arange(n, dtype=jnp.int32)

@@ -2,7 +2,8 @@
 
 Capability twins of the reference's CuckooFilter + CountingBloomFilter pair
 (/root/reference/src/base/kmercount.rs:70-123) for the memory-bounded
-streaming regime.  On TPU a filter is a flat tensor updated with scatter ops:
+streaming regime.  On the device a filter is a flat tensor updated with
+scatter ops:
 
 * :class:`BloomFilter`   — uint8 slot array; insert = scatter-max(1), query =
   AND over nb_hash probed slots.  Union across devices/batches is elementwise
@@ -17,14 +18,11 @@ Slots are *unpacked* (one per lane) rather than bit-packed: scatter-OR is not
 in XLA's scatter op set, scatter-max is — and HBM capacity, not bandwidth, is
 what bounds filter size here.
 
-Measured cost (v5e, 8M keys x 4 probes, 2^27..2^30 slots): ~443 ms/insert
-(~19 Mkeys/s) — TPU scatter serializes, and pre-sorting/deduping the probe
-indices does NOT help (the 32M-element sort costs as much as the scatter;
-measured 507-515 ms, `unique_indices` included).  That is ~20x slower than
-the exact Pallas merge-fold path (count/stream.py), which is why these
-filters are NOT on any hot path: they exist for the reference's
-memory-bounded approximate regime (CBF semantics, kmercount.rs:70-123)
-where one insert per BATCH of reads amortizes fine, not per-kmer rates.
+These filters are NOT on any hot path (exact counting streams through
+count/stream.py): they exist for the reference's memory-bounded
+approximate regime (CBF semantics, kmercount.rs:70-123), where one insert
+per BATCH of reads amortizes fine.  Their insert rate on the GPU is not
+measured yet.
 
 The reference's cuckoo "seen exactly once" semantics (insert_kmer's
 delete-and-promote, kmercount.rs:241-267) are realized exactly by the sort

@@ -1,30 +1,21 @@
 """Streaming whole-file counting: merge-fold device table.
 
-The round-1 engine re-sorted capacity+batch elements with two payloads on
-EVERY batch fold (991 ms at 2^25 capacity on v5e) — the wall-clock ceiling
-of `parsefastq --count` at file scale.  This module is its replacement and
-the ONLY counting-table engine: folds run the Pallas merge-path kernel
-(ops/merge_pallas.py):
+This module is the ONLY counting-table engine, built from the plain-XLA
+passes of ops/merge.py:
 
   batch      ->  one flat sort of the batch's canonical kmers (raw entries,
                  count 1 each — no per-batch aggregation pass)
-  fold       ->  ONE O(n) hierarchical merge of (table, batch); duplicate
-                 keys coexist as separate entries
-  compact    ->  when entries approach capacity: ONE fused Pallas pass
-                 (ops/merge_pallas.aggregate_fold_i32) aggregates runs
-                 in VMEM with an SMEM carry and butterfly-compacts
+  fold       ->  ONE merge by ranks of (table, batch); duplicate keys
+                 coexist as separate entries
+  compact    ->  when entries approach capacity: one aggregate pass
+                 (ops/merge.aggregate_fold_i32: run heads, cumsum
+                 differences, a segmented-min scan)
   finalize   ->  the same pass with the count-range filter, ONE transfer
 
-The table lives in the merge kernel's NATIVE layout between folds (round-2
-redesign): i32 arrays of physical length (n_tiles+2)*T for merge tile
-T = window-2048, key words sign-flipped (Mosaic compares signed), u32 keys
-biased +1 so a single compare word suffices, and only the prefix
-[0, used) meaningful — everything past it is sentinel or garbage that every
-consumer masks by ``used``.  Consequences measured on v5e: a fold is ONE
-partition + ONE kernel launch (no per-fold flip/concat/pack passes over
-capacity-sized arrays), tiles past the live merged length skip their DMA
-and compute entirely (fold cost scales with OCCUPANCY, not capacity), and
-compaction likewise processes only live tiles.
+Between folds the table is a set of int32 arrays of length ``capacity``:
+key words sign-flipped (``x ^ 0x80000000``, so signed order is unsigned
+order), u32 keys biased +1, and only the prefix [0, used) meaningful —
+everything past it is garbage that every consumer masks by ``used``.
 
 The reference counterpart is the cuckoo+counting-bloom insert loop and its
 threaded drivers (/root/reference/src/base/kmercount.rs:241-267,881-974);
@@ -34,18 +25,18 @@ keys deterministically, counted in ``n_dropped`` (entry granularity: a
 dropped entry may be a duplicate of a surviving key, so the distinct-key
 drop count is <= n_dropped; any surviving largest key may then undercount).
 
-Logical entry layout (kernel-native words, ascending by key over [0, used)):
+Logical entry layout (table words, ascending by key over [0, used)):
   k <= 16 ("u32 keys"):  (flip(key+1), cnt[, coord_hi, coord_lo])
   k 17..32 ("u64 keys"): (flip(hi(key+1)), flip(lo(key+1)), cnt
                           [, coord_hi, coord_lo])
 where flip(x) = x ^ 0x80000000 reinterpreted as i32.  The +1 bias keeps
-every live compare word off the all-zeros (unsigned) alignment-fake value
-and off the all-ones sentinel — canonical kmer values can be neither
-0xFF..FE nor 0xFF..FF (a kmer ending in C/G/T has a reverse complement
-strictly below 0xC0.., and one ending in A is above its own revcomp's
-first base; either way min(kmer, revcomp) < 0xC0..).  Within a run of
-equal keys entry order is arbitrary after merges, so aggregation computes
-the run coordinate as a segmented MIN, not the run head.
+every live key off the all-ones sentinel that masks the dead tail —
+canonical kmer values can be neither 0xFF..FE nor 0xFF..FF (a kmer ending
+in C/G/T has a reverse complement strictly below 0xC0.., and one ending in
+A is above its own revcomp's first base; either way min(kmer, revcomp) <
+0xC0..).  Within a run of equal keys entry order is arbitrary after
+merges, so aggregation computes the run coordinate as a segmented MIN, not
+the run head.
 """
 
 from __future__ import annotations
@@ -59,8 +50,8 @@ import jax.numpy as jnp
 
 from ..base.sequence import ReadBatch
 from ..base import kmer as kmer_mod
-from ..ops.merge_pallas import (merge_fold_i32, aggregate_fold_i32,
-                                merge_sorted_u32)
+from ..ops.merge import (merge_fold_i32, aggregate_fold_i32,
+                         merge_sorted_u32)
 
 I32 = jnp.int32
 U32 = jnp.uint32
@@ -68,9 +59,7 @@ U64 = jnp.uint64
 I64 = jnp.int64
 SENT32 = np.uint32(0xFFFFFFFF)
 SENT64 = np.uint64(0xFFFFFFFFFFFFFFFF)
-_FLIP = np.uint32(0x80000000)
 _IMAX = np.int32(0x7FFFFFFF)
-_Q = 1024                      # DMA alignment quantum (ops/merge_pallas._Q)
 
 # one batch is capped at 8M padded bases (io/fastx.read_batches); the
 # auto-compact threshold keeps this much headroom so a fold can never
@@ -78,26 +67,13 @@ _Q = 1024                      # DMA alignment quantum (ops/merge_pallas._Q)
 BATCH_CAP = 9 << 20
 
 
-def _layout(capacity: int, narr: int):
-    """(window P, merge tile T, n_tiles, physical length Lp) for a table.
-
-    The default window is VMEM-budgeted by array count (the fold kernel
-    holds TWO full buffer sets for double-buffered input DMA); small
-    (test-sized) tables shrink it so interpret-mode kernels stay fast."""
-    P = 1 << 17 if narr <= 3 else 1 << 16
-    P = min(P, 1 << max(12, (capacity - 1).bit_length()))
-    T = P - 2 * _Q
-    n_tiles = -(-capacity // T)
-    return P, T, n_tiles, (n_tiles + 2) * T
-
-
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class StreamCountTable:
     """Sorted entry table with pending duplicates (see module docstring).
 
-    arrs:      tuple of int32 [Lp] KERNEL-NATIVE entry words; only the
-               prefix [0, used) is meaningful.
+    arrs:      tuple of int32 [capacity] entry words (module docstring
+               layout); only the prefix [0, used) is meaningful.
     used:      int32 — occupied entries (live rows incl. duplicates).
     n_dropped: int64 — entries dropped past capacity (largest keys first).
     """
@@ -125,7 +101,6 @@ class StreamCountTable:
     wide: bool = dataclasses.field(metadata=dict(static=True), default=False)
     coords: bool = dataclasses.field(metadata=dict(static=True), default=False)
     cap: int = dataclasses.field(metadata=dict(static=True), default=0)
-    window: int = dataclasses.field(metadata=dict(static=True), default=0)
 
     @property
     def capacity(self) -> int:
@@ -134,14 +109,13 @@ class StreamCountTable:
     @staticmethod
     def create(capacity: int, wide: bool, coords: bool) -> "StreamCountTable":
         narr = (3 if wide else 2) + (2 if coords else 0)
-        window, _, _, lp = _layout(capacity, narr)
         return StreamCountTable(
-            arrs=tuple(jnp.full(lp, _IMAX, I32) for _ in range(narr)),
+            arrs=tuple(jnp.full(capacity, _IMAX, I32) for _ in range(narr)),
             used=jnp.zeros((), jnp.int32),
             n_dropped=jnp.zeros((), I64),
             grow_hint=jnp.zeros((), jnp.int32),
             last_distinct=jnp.zeros((), jnp.int32),
-            wide=wide, coords=coords, cap=capacity, window=window)
+            wide=wide, coords=coords, cap=capacity)
 
 
 def batch_entries(batch: ReadBatch, k: int, read_num_offset,
@@ -151,11 +125,10 @@ def batch_entries(batch: ReadBatch, k: int, read_num_offset,
     Returns (arrs, n_live): uint32 arrays [n*p] in RAW entry order —
     (key[, cnt, coord_hi, coord_lo]) for u32 keys, split (hi, lo) for u64 —
     sorted ascending, one entry per valid kmer position (count 1 each).
-    Keys carry the +1 storage bias at BOTH widths, so runs can be merged
-    pairwise with ops/merge_pallas.merge_sorted_u32 (its no-zero-key
-    constraint would otherwise be violated by the all-A canonical kmer)
-    before folding — see :class:`StagedFolder`.  read_num_offset may be a
-    traced scalar.
+    Keys carry the +1 storage bias at BOTH widths (the table's layout), so
+    runs can be merged pairwise with ops/merge.merge_sorted_u32 before
+    folding — see :class:`StagedFolder`.  read_num_offset may be a traced
+    scalar.
     """
     can, valid, _ = kmer_mod.canonical_kmers(batch, k)
     n, p = can.shape
@@ -199,31 +172,12 @@ def batch_entries(batch: ReadBatch, k: int, read_num_offset,
     return arrs, live.sum().astype(jnp.int32)
 
 
-def _batch_to_kernel(batch_arrs, wide: bool, window: int):
-    """RAW sorted batch entries (keys already +1-biased by
-    :func:`batch_entries`) -> the fold kernel's b-side form: compare words
-    sign-flipped, padded to a _Q multiple plus one window of trailing
-    sentinels, then REVERSED (Mosaic has no in-kernel rev; the kernel
-    slices descending windows from the back)."""
-    ncmp = 2 if wide else 1
-    nb = batch_arrs[0].shape[0]
-    nb_p = -(-nb // _Q) * _Q
-    outs = []
-    for j, x in enumerate(batch_arrs):
-        x = jnp.asarray(x, U32)
-        x = jnp.concatenate([x, jnp.full((nb_p + window - nb,), SENT32, U32)])
-        if j < ncmp:
-            x = x ^ _FLIP
-        outs.append(jax.lax.bitcast_convert_type(x, I32)[::-1])
-    return tuple(outs)
-
-
 def _compact(table: StreamCountTable) -> StreamCountTable:
     # NOTE: never filter by count range here — mid-stream compaction must
     # preserve every run (finalize applies lo/hi on its own aggregate pass)
     outs, n_live = aggregate_fold_i32(
         table.arrs, table.used, kw=2 if table.wide else 1,
-        coords=table.coords, capacity=table.cap, window=table.window)
+        coords=table.coords)
     return dataclasses.replace(table, arrs=tuple(outs), used=n_live,
                                last_distinct=n_live)
 
@@ -231,11 +185,9 @@ def _compact(table: StreamCountTable) -> StreamCountTable:
 def _fold_body(table: StreamCountTable, batch_arrs, batch_live):
     S = table.cap
     ncmp = 2 if table.wide else 1
-    b_in = _batch_to_kernel(batch_arrs, table.wide, table.window)
 
     def do_fold(t):
-        merged = merge_fold_i32(t.arrs, b_in, t.used, batch_live,
-                                ncmp=ncmp, capacity=S, window=t.window)
+        merged = merge_fold_i32(t.arrs, batch_arrs, t.used, ncmp=ncmp)
         used = t.used + batch_live
         dropped = jnp.maximum(used - S, 0).astype(I64)
         return dataclasses.replace(t, arrs=tuple(merged),
@@ -263,9 +215,11 @@ def _fold_body(table: StreamCountTable, batch_arrs, batch_live):
         return dataclasses.replace(t, grow_hint=hint)
 
     # A second, amortized trigger (independent of the staged fold size)
-    # bounds pending duplicates far from capacity.  Folds cost O(D + P)
-    # HBM traffic (D = distinct, P = pending) and a compaction costs the
-    # same but resets P to 0; balancing total traffic over a
+    # bounds pending duplicates far from capacity.  It was derived for
+    # folds that cost O(D + P) HBM traffic (D = distinct, P = pending);
+    # the plain-XLA fold's passes span the whole capacity instead, so the
+    # trigger's worth is open (ROADMAP D1).  A compaction resets P to 0;
+    # balancing total traffic over a
     # fold-compact cycle of P/F folds minimizes at P* = 2*sqrt(D*F)
     # (d/dP of [D + P/2 + 2DF/P] = 0).  The old fixed bound
     # (min(4*BATCH_CAP, S/2)) let P grow ~16x distinct on small-genome
@@ -284,26 +238,25 @@ def _fold_body(table: StreamCountTable, batch_arrs, batch_live):
 
 
 @functools.partial(jax.jit, donate_argnums=(0,),
-                   static_argnames=("wide", "coords", "cap", "window"))
+                   static_argnames=("wide", "coords", "cap"))
 def _fold_donated(arrs, used, n_dropped, last_distinct, batch_arrs,
-                  batch_live, *, wide, coords, cap, window):
+                  batch_live, *, wide, coords, cap):
     t = StreamCountTable(arrs=arrs, used=used, n_dropped=n_dropped,
                          last_distinct=last_distinct, wide=wide,
-                         coords=coords, cap=cap, window=window)
+                         coords=coords, cap=cap)
     out = _fold_body(t, batch_arrs, batch_live)
     return out.arrs, out.used, out.n_dropped, out.grow_hint, out.last_distinct
 
 
 def fold(table: StreamCountTable, batch_arrs, batch_live):
-    """Merge one batch's RAW sorted entries into the table (one Pallas
-    merge); auto-compacts on device when occupancy approaches capacity, so
+    """Merge one batch's RAW sorted entries into the table (one merge by
+    ranks, ops/merge.py); auto-compacts on device when occupancy approaches capacity, so
     a stream of folds never needs host synchronization.
 
-    The table's entry arrays are DONATED: the program's outputs alias the
-    2-4 capacity-sized input buffers, so a stream of folds runs in ~one
-    table's HBM instead of allocating a fresh table per fold (at 2^28
-    that is 1-2 GB/fold of churn — enough to stall dispatch on allocator
-    waits with a few folds in flight).  Do not reuse a table object after
+    The table's entry arrays are DONATED, so XLA may reuse the 2-5
+    capacity-sized input buffers for the fold's outputs and temporaries
+    instead of holding two tables per queued fold (at 2^28 capacity that
+    is 1-2 GB per fold).  Do not reuse a table object after
     folding it; StagedFolder/CLI replace their reference every fold.
     Scalar leaves (used/grow_hint/...) are NOT donated — callers may keep
     them (the CLI's lag-1 hint fetches) after the next fold is queued.
@@ -311,7 +264,7 @@ def fold(table: StreamCountTable, batch_arrs, batch_live):
     arrs, used, nd, gh, ld = _fold_donated(
         tuple(table.arrs), table.used, table.n_dropped, table.last_distinct,
         batch_arrs, batch_live, wide=table.wide, coords=table.coords,
-        cap=table.cap, window=table.window)
+        cap=table.cap)
     return dataclasses.replace(table, arrs=arrs, used=used, n_dropped=nd,
                                grow_hint=gh, last_distinct=ld)
 
@@ -324,13 +277,11 @@ def compact(table: StreamCountTable) -> StreamCountTable:
 class StagedFolder:
     """LSM-style staging in front of :func:`fold`.
 
-    A fold re-reads the table's whole live prefix — O(used) — which
-    dominates streaming at high occupancy (measured 43 ms per fold at
-    41.6M live entries on v5e, vs 5.8 ms to merge two 8.4M-entry batch
-    runs with the generic merge kernel).  Staging merges ``2**depth``
-    consecutive batch runs into ONE sorted run first, binary-counter
-    style (each entry passes through ``depth`` cheap O(batch) merges), so
-    the table pays its O(used) re-read once per ``2**depth`` batches.
+    A fold passes over the whole table, which dominates streaming into a
+    large table; merging two batch runs costs O(batch).  Staging merges
+    ``2**depth`` consecutive batch runs into ONE sorted run first,
+    binary-counter style (each entry passes through ``depth`` O(batch)
+    merges), so the table pays its pass once per ``2**depth`` batches.
     Fold order does not affect results: counts are commutative sums and
     run coordinates are segmented minima.
 
@@ -348,17 +299,9 @@ class StagedFolder:
 
     MAX_DEPTH = 2
 
-    def __init__(self, table: StreamCountTable, depth: int | None = None,
-                 window: int | None = None):
-        if window is None:
-            # same VMEM budget rule as _layout: the generic merge kernel
-            # holds 2*narr P-sized scratch buffers + 2x out staging; at 4+
-            # arrays a 2^17 window overshoots the 16M scoped-vmem limit
-            narr = (3 if table.wide else 2) + (2 if table.coords else 0)
-            window = 1 << 17 if narr <= 3 else 1 << 16
+    def __init__(self, table: StreamCountTable, depth: int | None = None):
         self.table = table
         self._depth = depth
-        self.window = window
         self._runs: list = []     # [level, arrs, live]; levels strictly
         #                           decreasing bottom-to-top of the stack
 
@@ -381,8 +324,7 @@ class StagedFolder:
                and self._runs[-1][0] == self._runs[-2][0]):
             lvl, b, lb = self._runs.pop()
             _, a, la = self._runs.pop()
-            m = merge_sorted_u32(a, b, ncmp=2 if self.table.wide else 1,
-                                 window=self.window)
+            m = merge_sorted_u32(a, b, ncmp=2 if self.table.wide else 1)
             self._runs.append([lvl + 1, m, la + lb])
         if self._runs[0][0] >= self.depth:
             _, a, live = self._runs.pop()
@@ -400,17 +342,14 @@ class StagedFolder:
 
 def grow(table: StreamCountTable, new_capacity: int) -> StreamCountTable:
     """Grow the table's capacity in place: live entries are a contiguous
-    prefix, so growth is ONE sentinel-pad concatenation keeping the same
-    merge window — no re-sort, no merge.  The cuckoo-resize role of the
+    prefix, so growth is ONE sentinel-pad concatenation — no re-sort, no
+    merge.  The cuckoo-resize role of the
     reference's capacity bound (kmercount.rs:297-307), but cheap enough to
     run mid-stream: callers start small and grow x8 only when occupancy
     stays high after compaction (see cli/parsefastq)."""
     if new_capacity <= table.cap:
         return table
-    T = table.window - 2 * _Q
-    n_tiles = -(-new_capacity // T)
-    lp = (n_tiles + 2) * T
-    pad = lp - table.arrs[0].shape[0]
+    pad = new_capacity - table.cap
     return dataclasses.replace(
         table,
         arrs=tuple(jnp.concatenate([a, jnp.full((pad,), _IMAX, I32)])
@@ -451,15 +390,14 @@ def _finalize_prog(kw: int):
     `jax.jit` wrapper retraces the aggregate graph on every finalize
     (measured 1.3 s host trace per call); one persistent wrapper per key
     width traces once per (table config, filter statics) and then
-    dispatches in ~0 (pytree statics — coords/cap/window — key jit's own
-    trace cache)."""
+    dispatches in ~0 (pytree statics — coords/cap — key jit's own trace
+    cache)."""
 
     @functools.partial(jax.jit, static_argnames=("lo", "hi", "clamp"))
     def run(t, lo, hi, clamp):
-        # ONE fused aggregate+filter+compact pass (ops/merge_pallas.py)
-        outs, n = aggregate_fold_i32(
-            t.arrs, t.used, kw=kw, coords=t.coords, capacity=t.cap,
-            window=t.window, lo=lo, hi=hi)
+        # aggregate + filter + compact (ops/merge.py)
+        outs, n = aggregate_fold_i32(t.arrs, t.used, kw=kw, coords=t.coords,
+                                     lo=lo, hi=hi)
         if clamp is not None:
             dt = jnp.uint8 if clamp <= 0xFF else jnp.uint16
             cu = jax.lax.bitcast_convert_type(outs[kw], U32)
@@ -545,7 +483,7 @@ def finalize(table: StreamCountTable, min_count: int = 1,
     if n == 0:
         # empty/fully-filtered table: skip the device slices entirely —
         # _q64k's max(n, 1) would otherwise queue a full 64k-row transfer
-        # of garbage per array (ADVICE r4)
+        # of garbage per array
         z = np.zeros(0, np.uint32)
         keys = z.astype(np.uint64) if table.wide else z
         cdt = (np.uint32 if count_clamp is None

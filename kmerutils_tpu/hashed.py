@@ -6,14 +6,14 @@ The reference threads (hash, maybe-item) pairs through its minhash heaps:
 item since it is recoverable (``InvHashedItem``/``InvHashCount{count u8}``,
 hashed.rs:60-113).
 
-On TPU these never exist per-object — sketches are (hash array, count array)
+On the device these never exist per-object — sketches are (hash array, count array)
 pairs (sketch/minhash.py).  These dataclasses are the host-side boundary
 types for users porting code from the reference, with the same ordering and
 recovery semantics.
 
 The reference's ``NoHashHasher`` (/root/reference/src/nohasher.rs:11-49) — an
 identity Hasher letting pre-hashed values pass through std collections — has
-no TPU counterpart by construction: hashes here are plain integer tensors,
+no device counterpart by construction: hashes here are plain integer tensors,
 identity passthrough is the default everywhere.
 """
 

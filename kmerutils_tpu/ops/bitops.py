@@ -6,7 +6,7 @@ the full [0, nbits] shift range (lane shifts by >= width are undefined in XLA,
 like in C).
 
 All functions are shape-polymorphic elementwise jnp ops; they trace cleanly
-under jit / vmap / shard_map and lower to VPU code on TPU.
+under jit / vmap / shard_map and lower to plain elementwise device code.
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def reverse_base_pairs_u32(x):
 
     Equivalent to the reference's ``reverse_bits`` followed by the adjacent-bit
     swap (Hacker's Delight symmetry), cf. /root/reference/src/base/kmer16b32bit.rs:43-54,
-    but expressed as a mask ladder (no bit-reverse instruction on the VPU):
+    but expressed as a mask ladder (no bit-reverse op in XLA):
     swap 2-bit groups within nibbles, nibbles within bytes, then byte-reverse.
     """
     x = jnp.asarray(x, U32)

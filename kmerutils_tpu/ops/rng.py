@@ -8,7 +8,7 @@ the ``invhash`` module of the external ``probminhash`` crate (invertible
 the snapshot; we implement Thomas Wang's published invertible hashes
 (hash32shiftmult and hash64shift) plus exact inverses.  All sketching RNG is
 counter-based (splitmix64) so every (item, slot) random draw is an independent
-pure function — the TPU-native replacement for the reference's stateful
+pure function — the device replacement for the reference's stateful
 per-item xoshiro streams.
 """
 

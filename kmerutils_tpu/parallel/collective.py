@@ -1,6 +1,6 @@
 """Multi-device counting & sketching via shard_map collectives.
 
-TPU-native re-expression of the reference's parallel inventory
+Device re-expression of the reference's parallel inventory
 (SURVEY.md §2.10 / /root/reference/src/base/kmercount.rs):
 
 * producer->consumer channels routing kmers to per-thread counters
@@ -24,10 +24,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:                                   # moved to the core namespace
-    from jax import shard_map
-except ImportError:                    # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..base.sequence import ReadBatch
 from ..base import kmer as kmer_mod
@@ -128,8 +125,8 @@ def sharded_count_redundant(batch: ReadBatch, k: int, mesh: Mesh):
 
 def sharded_setsketch_collection(items, valid, params, mesh: Mesh, seed: int = 0):
     """One SetSketch for the whole sharded collection: per-device registers
-    merged with pmax over ICI (the TPU form of the reference's block-merge
-    tree, setsketchert.rs:811-895)."""
+    merged with pmax across the mesh (the device form of the reference's
+    block-merge tree, setsketchert.rs:811-895)."""
 
     def step(it, va):
         regs = setsketch.setsketch_signatures(it, va, params, seed)
@@ -146,9 +143,7 @@ def sharded_bloom_insert(slots, keys, nb_hash: int, log2_slots: int, mesh: Mesh)
     """Insert sharded keys into a replicated Bloom slot tensor: local scatter
     then pmax union (kmercount.rs:810-814's mergeability).
 
-    The local scatter costs ~443 ms per 8M keys on a v5e (see
-    count/filters.py — sort-based alternatives measured no faster), so this
-    is a per-batch capability API, not the per-kmer hot path; exact counting
+    A per-batch capability API, not the per-kmer hot path; exact counting
     streams through count/stream.py + parallel sharded_stream_* instead."""
     from ..count import filters
 
@@ -179,8 +174,8 @@ def sharded_stream_update(table, batch: ReadBatch, k: int, mesh: Mesh,
                           shard_cap_factor: float = 1.5):
     """One exchange+fold step of multi-chip counting through the merge-fold
     tables: reads data-parallel, raw kmer entries (count 1 each, optional
-    first-occurrence coords) routed to their invhash shard over ICI
-    (all_to_all), sorted locally, and folded by ONE Pallas merge per chip.
+    first-occurrence coords) routed to their invhash shard (all_to_all),
+    sorted locally, and folded by ONE merge per device.
 
     The un-staged single-step API; streaming loops should use
     parallel/stream.ShardedStreamCounter (LSM staging + growth ladder +
@@ -220,13 +215,8 @@ def gather_signatures(sigs, mesh: Mesh):
 
     # all_gather makes every device's output identical; shard_map cannot
     # infer that statically, so replication checking is disabled here
-    # (kwarg renamed check_rep -> check_vma when shard_map moved to core)
-    try:
-        fn = shard_map(step, mesh=mesh, in_specs=P(READS_AXIS),
-                       out_specs=P(), check_vma=False)
-    except TypeError:
-        fn = shard_map(step, mesh=mesh, in_specs=P(READS_AXIS),
-                       out_specs=P(), check_rep=False)
+    fn = shard_map(step, mesh=mesh, in_specs=P(READS_AXIS), out_specs=P(),
+                   check_vma=False)
     return fn(sigs)
 
 

@@ -2,7 +2,7 @@
 
 The engine's parallel axes (SURVEY.md §2.10): reads are data-parallel across
 devices; kmer space is hash-partitioned for counting (the DispatchableT shard
-semantics) with an all-to-all exchange riding ICI; sketch/filter state merges
+semantics) with an all-to-all exchange between devices; sketch/filter state merges
 with psum/pmax collectives.  One 1-D mesh covers all of it.
 """
 

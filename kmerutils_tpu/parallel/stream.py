@@ -1,23 +1,23 @@
 """Multi-chip streaming counting: the production sharded merge-fold path.
 
-One engine, two scales: count/stream.py owns the single-chip streaming
-table (Pallas merge-fold, LSM staging, growth ladder, disk spill); this
-module runs the SAME machinery per chip with kmer space hash-partitioned
-across a jax mesh:
+One engine, two scales: count/stream.py owns the single-device streaming
+table (merge-fold, LSM staging, growth ladder, disk spill); this module
+runs the SAME machinery per device with kmer space hash-partitioned across
+a jax mesh:
 
   exchange  ->  reads data-parallel; each device extracts + canonicalizes
                 its reads' kmers, routes them by invhash shard id
                 (DispatchableT, /root/reference/src/base/kmercount.rs:
                 382-420) through ONE bucketized all_to_all, and sorts the
-                received keys into a kernel-ready run (count 1 each,
+                received keys into a fold-ready run (count 1 each,
                 +1-biased keys — count/stream.py's layout contract).
   stage     ->  per-device LSM staging: 2**depth consecutive runs merge
-                binary-counter style (ops/merge_pallas.merge_sorted_u32
+                binary-counter style (ops/merge.merge_sorted_u32
                 under shard_map) before touching the table, so the
                 O(occupancy) table re-read amortizes — the same bounded
                 channel role as the reference's producer->consumer pipe
                 (kmercount.rs:881-974).
-  fold      ->  ONE Pallas merge fold per chip (stream._fold_body inside
+  fold      ->  ONE merge fold per device (stream._fold_body inside
                 shard_map, buffers donated, NO collective — per-host fold
                 pipelines stay independent).  The device-raised per-shard
                 grow hints are pmax-reduced by a separate tiny program
@@ -36,7 +36,7 @@ across a jax mesh:
                 single process.
 
 The reference's counter pool is thread-sharded inside one box; this is the
-same partition over ICI/DCN with device-resident tables.
+same partition across devices with device-resident tables.
 """
 
 from __future__ import annotations
@@ -47,17 +47,14 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:                    # older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..base.sequence import ReadBatch
 from ..base import kmer as kmer_mod
 from ..count import dispatch, stream
 from ..count.exact import SENTINEL64
-from ..ops.merge_pallas import merge_sorted_u32
+from ..ops.merge import merge_sorted_u32
 from .mesh import READS_AXIS
 
 # Module-level program cache shared by every ShardedStreamCounter (and the
@@ -79,20 +76,14 @@ I32 = jnp.int32
 U32 = jnp.uint32
 U64 = jnp.uint64
 _IMAX = np.int32(0x7FFFFFFF)
-_Q = 1024
 _add = jax.jit(jnp.add)
 
 
 def _shard_map(fn, mesh, in_specs, out_specs):
-    """shard_map with replication checking off (pallas_call inside shard_map
-    predates the vma annotation plumbing; kwarg renamed check_rep ->
-    check_vma when shard_map moved to core)."""
-    try:
-        return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_vma=False)
-    except TypeError:
-        return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_rep=False)
+    """shard_map with replication checking off: the per-shard programs mix
+    device-varying and replicated values freely."""
+    return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                     check_vma=False)
 
 
 def sharded_stream_create(capacity_per_device: int, mesh: Mesh,
@@ -207,9 +198,8 @@ def make_fold(mesh: Mesh, table_like: stream.StreamCountTable):
     1.4 s -> 6.4 s at 2 processes).  The ladder instead reduces sampled
     hints through make_hint_reduce at the host's existing lag-1 sample
     point, so folds on different hosts proceed independently."""
-    wide, coords = table_like.wide, table_like.coords
-    cap, window = table_like.cap, table_like.window
-    ckey = ("fold", _mesh_key(mesh), wide, coords, cap, window)
+    wide, coords, cap = table_like.wide, table_like.coords, table_like.cap
+    ckey = ("fold", _mesh_key(mesh), wide, coords, cap)
     if ckey in _PROG_CACHE:
         return _PROG_CACHE[ckey]
 
@@ -217,7 +207,7 @@ def make_fold(mesh: Mesh, table_like: stream.StreamCountTable):
         t = stream.StreamCountTable(
             arrs=tuple(a[0] for a in arrs), used=used[0],
             n_dropped=n_dropped[0], last_distinct=last_distinct[0],
-            wide=wide, coords=coords, cap=cap, window=window)
+            wide=wide, coords=coords, cap=cap)
         out = stream._fold_body(t, tuple(r[0] for r in run_arrs), live[0])
         return (tuple(a[None] for a in out.arrs), out.used[None],
                 out.n_dropped[None], out.last_distinct[None],
@@ -265,18 +255,15 @@ def make_hint_reduce(mesh: Mesh):
 
 def make_merge_runs(mesh: Mesh, wide: bool, narr: int):
     """Build the jitted per-device staged-run merge (one
-    ops/merge_pallas.merge_sorted_u32 per shard under shard_map)."""
+    ops/merge.merge_sorted_u32 per shard under shard_map)."""
     ckey = ("merge_runs", _mesh_key(mesh), wide, narr)
     if ckey in _PROG_CACHE:
         return _PROG_CACHE[ckey]
-    # same VMEM budget rule as count/stream.StagedFolder
-    window = 1 << 17 if narr <= 3 else 1 << 16
     ncmp = 2 if wide else 1
 
     def step(a_arrs, b_arrs):
         m = merge_sorted_u32(tuple(x[0] for x in a_arrs),
-                             tuple(x[0] for x in b_arrs),
-                             ncmp=ncmp, window=window)
+                             tuple(x[0] for x in b_arrs), ncmp=ncmp)
         return tuple(x[None] for x in m)
 
     fn = _shard_map(step, mesh, in_specs=(P(READS_AXIS), P(READS_AXIS)),
@@ -291,10 +278,7 @@ def sharded_grow(table, new_capacity: int, mesh: Mesh):
     per shard, stacked).  Stale grow hints are cleared like stream.grow."""
     if new_capacity <= table.cap:
         return table
-    T = table.window - 2 * _Q
-    n_tiles = -(-new_capacity // T)
-    lp = (n_tiles + 2) * T
-    pad = lp - table.arrs[0].shape[1]
+    pad = new_capacity - table.cap
     sh = NamedSharding(mesh, P(READS_AXIS))
 
     # no donation: the padded output is a different shape, so the input
@@ -331,8 +315,7 @@ def local_shard_tables(table):
             arrs=tuple(d[f"arr{j}"] for j in range(len(table.arrs))),
             used=d["used"], n_dropped=d["n_dropped"],
             grow_hint=d["grow_hint"], last_distinct=d["last_distinct"],
-            wide=table.wide, coords=table.coords, cap=table.cap,
-            window=table.window)
+            wide=table.wide, coords=table.coords, cap=table.cap)
 
 
 def finalize_local(table, min_count: int = 1, max_count: int | None = None,

@@ -7,7 +7,7 @@ fixed ``block_size`` windows, each window gets its own ProbMinHash signature
 distance between two blocks is 1.0 if they come from the same read, else the
 fraction of unequal sketch slots (Probability-Jaccard distance, :417-440).
 
-TPU form: the [n_reads, P] kmer-slot grid reshapes to
+Device form: the [n_reads, P] kmer-slot grid reshapes to
 [n_reads * n_blocks, block_size] and the whole thing goes through the same
 dense probminhash kernel — blocks are just more rows.
 """

@@ -1,6 +1,6 @@
 """Host-side GOLDEN ProbMinHash3 — Ertl's published sequential algorithm.
 
-PARITY.md's standing deviation is that TPU signatures are
+PARITY.md's standing deviation is that device signatures are
 estimator-equivalent to the reference's, not bit-identical: the reference
 consumes the external ``probminhash`` crate (not in the snapshot, no Rust
 toolchain here), whose RNG-consumption order is inherently sequential.  To
@@ -25,7 +25,7 @@ streams.  Exponential draws are -ln(u) / rate with u drawn as the standard
 53-bit double in (0,1].
 
 This is NOT a performance path — it exists so tests can measure the
-slot-collision statistics of the TPU sampler against a faithful
+slot-collision statistics of the device sampler against a faithful
 implementation of the published algorithm (PARITY.md §3 carries the
 numbers).
 """
@@ -242,7 +242,7 @@ def setsketch_golden(items, m: int, b: float, a: float, q: int,
 
 
 def setsketch_cardinality_golden(regs, m: int, b: float, a: float) -> float:
-    """Ertl's GHLL estimator (the same closed form the TPU path uses)."""
+    """Ertl's GHLL estimator (the same closed form the device path uses)."""
     s = float(np.power(b, -regs.astype(np.float64)).sum())
     return m * (1.0 - 1.0 / b) / (a * math.log(b)) / s
 

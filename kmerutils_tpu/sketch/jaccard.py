@@ -62,8 +62,8 @@ class Sketcher:
 
     ``sketch_batch`` runs as ONE jitted program per (params, batch shape) —
     kmer extraction, canonicalization, hashing and the sketch kernel fuse
-    into a single device computation (eager dispatch of the prefix ops
-    dominates wall time on remote-attached TPUs otherwise).
+    into a single device computation (no eager dispatch of the prefix
+    ops).
     """
 
     params: SeqSketcherParams

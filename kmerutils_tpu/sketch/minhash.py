@@ -6,7 +6,7 @@ MinInvHashCountKmer (stores only the invertible hashes since kmers are
 recoverable, :194-290) and the distance functions returning
 (containment, jaccard, common, total) (:134-190, :295-340).
 
-TPU form: per-read sort of item hashes, run-length dedup, keep the S smallest
+Device form: per-read sort of item hashes, run-length dedup, keep the S smallest
 distinct hashes and their occurrence counts — all static-shape.
 """
 

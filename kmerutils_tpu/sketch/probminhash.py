@@ -1,4 +1,4 @@
-"""ProbMinHash — per-read Probability-Jaccard signatures, TPU-dense.
+"""ProbMinHash — per-read Probability-Jaccard signatures, device-dense.
 
 Capability twin of ProbHash3aSketch
 (/root/reference/src/sketching/setsketchert.rs:85-203): the reference builds a
@@ -9,7 +9,7 @@ s receives  argmin_x  E_s(x)  with  E_s(x) ~ Exp(weight(x))  drawn as a pure
 function of (item x, slot s).  Any implementation of that sampler satisfies
 P(sig_s^A == sig_s^B) = J_P(A, B) — the Probability Jaccard.
 
-TPU-native single-phase design (instead of the crate's heap + xoshiro
+Single-phase device design (instead of the crate's heap + xoshiro
 streams): every position p carries its item's multiplicity w_p (identical for
 duplicate occurrences, so duplicates are harmless — they contribute the same
 draw).  Slot s's winner is
@@ -99,31 +99,15 @@ def _tournament(items, winv, valid, m: int, seed):
     high 32 bits order by the exponential draw (~bits(E) — IEEE f32 patterns
     of positive floats are monotone), low 32 bits carry the COMPLEMENT of
     the item (ties resolve to the smallest item, keeping the sampler a pure
-    function of the weighted item set — matching the Pallas kernel) or of
-    the position index for u64 items (recovered by one gather; ties resolve
-    to the first position, which on the sorted rows of
-    probminhash_from_items is again the smallest item).
+    function of the weighted item set) or of the position index for u64
+    items (recovered by one gather; ties resolve to the first position,
+    which on the sorted rows of probminhash_from_items is again the
+    smallest item).  There are no matrix products here, so TF32 matmul
+    precision plays no part; the one float op is the f32 ``log``.
     """
     items = jnp.asarray(items)
     wide = items.dtype == jnp.uint64
     empty = ~valid.any(axis=1)
-
-    from .. import config
-    if config.pallas_tournament_enabled():
-        from ..ops.tournament import weighted_tournament
-        winv_m = jnp.where(valid, jnp.asarray(winv, F32), F32(0.0))
-        if not wide:
-            sig = weighted_tournament(items, winv_m, m, seed=seed)
-            return jnp.where(empty[:, None], U32(0), sig), empty
-        # wide items: the kernel reduces on the 32-bit fold, carries the
-        # item halves, and resolves ties to the first position (the XLA
-        # wide path's rule) — no gather needed
-        from ..ops.tournament import weighted_tournament_u64
-        lo = (items & U64(0xFFFFFFFF)).astype(U32)
-        hi = (items >> U64(32)).astype(U32)
-        lo_w, hi_w = weighted_tournament_u64(lo, hi, winv_m, m, seed=seed)
-        sig = (hi_w.astype(U64) << U64(32)) | lo_w.astype(U64)
-        return jnp.where(empty[:, None], U64(0), sig), empty
 
     slotc = _slot_consts(m, seed)
     it32 = _fold32(items)

@@ -5,7 +5,7 @@ Capability twin of /root/reference/src/sketching/seqminhash.rs:19-119:
 kmers of ONE sequence restricted to a base range [start, end), k dispatched
 exactly 16 vs 9..=15, canonical kmers through the invertible hash.
 
-TPU form: the range is a validity mask over the kmer start-position axis —
+Device form: the range is a validity mask over the kmer start-position axis —
 kmer p participates iff start <= p and p + k <= end — applied before the
 batched sketch kernels.
 """

@@ -6,7 +6,7 @@ setsketchert.rs:600-896) wrapping probminhash's SetSketcher: registers
 hold truncated-geometric order statistics, the whole sketch merges by
 elementwise max — the property the reference exploits to sketch a file in
 parallel blocks then union (sketch_compressedkmer_seqs :811-895), and that we
-exploit across a TPU mesh with one jax.lax.pmax.
+exploit across a device mesh with one jax.lax.pmax.
 
 Register definition (SetSketch1 of the paper): for item d and register i,
 
@@ -77,7 +77,7 @@ def setsketch_signatures(items, valid, params: SetSketchParams, seed=0):
     # uniform draw u (e = -ln u decreases in u, log_b(a/e) increases), and
     # u is monotone in the raw u32 hash.  So max over positions of val(u)
     # = val(max over positions of h): the reduction runs on the integer
-    # hash alone (~6 VPU ops per (position, register) pair) and the
+    # hash alone (~6 elementwise ops per (position, register) pair) and the
     # transcendental epilogue runs once per register on [n, m].
     h = it32[..., None] ^ salts
     h = h * c(0x9E3779B1)

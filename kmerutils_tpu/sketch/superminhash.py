@@ -1,4 +1,4 @@
-"""SuperMinHash (Ertl 2017) — per-read Jaccard signatures, TPU-dense.
+"""SuperMinHash (Ertl 2017) — per-read Jaccard signatures, device-dense.
 
 Capability twin of SuperHashSketch / SuperHash2Sketch
 (/root/reference/src/sketching/setsketchert.rs:211-336, 904-1046).  The

@@ -5,7 +5,7 @@ one 8-device global mesh spanning a process (≈ host/DCN) boundary.  The
 worker drives, across that boundary: the hash-routed all_to_all counting
 step (collective.sharded_count), the signature all-gather
 (collective.gather_signatures), and the PRODUCTION streaming path
-(parallel/stream.ShardedStreamCounter — Pallas merge-fold tables with LSM
+(parallel/stream.ShardedStreamCounter — merge-fold tables with LSM
 staging) over >=3 batches at both key widths with coordinates on, each
 verified against a replicated host oracle — plus one forced GROWTH epoch
 and one forced SPILL epoch of that production path (tiny caps), so the
@@ -111,7 +111,7 @@ def main():
     assert np.array_equal(g_host, np.asarray(sig_full))
 
     # 3. PRODUCTION streaming path across the boundary: ShardedStreamCounter
-    # (Pallas merge-fold tables + LSM staging) over >= 3 batches at both key
+    # (merge-fold tables + LSM staging) over >= 3 batches at both key
     # widths with coordinates on.  Each process oracle-verifies the shards
     # it owns (the per-host view of the pool union, kmercount.rs:546-565).
     from kmerutils_tpu.parallel import stream as pstream

@@ -168,7 +168,7 @@ def test_count_batch_nthash(rng):
     assert dict(zip(keys.tolist(), counts.tolist())) == dict(c)
 
 
-# The round-1 DeviceCountTable sort-fold engine was retired (VERDICT r2 #5);
+# The round-1 DeviceCountTable sort-fold engine was retired;
 # streaming accumulation is covered by tests/test_stream.py and the sharded
 # path by tests/test_parallel.py::TestShardedStreamCounter.
 

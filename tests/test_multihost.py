@@ -3,7 +3,7 @@ boundary on CPU — SURVEY.md §7 step 7's testable slice.
 
 Spawns two worker processes (4 virtual CPU devices each) that build one
 8-device global mesh, run the hash-routed all_to_all count, the signature
-all-gather, AND the production streaming path (ShardedStreamCounter: Pallas
+all-gather, AND the production streaming path (ShardedStreamCounter:
 merge-fold tables + LSM staging, both key widths, coords on, >= 3 batches)
 across the boundary, verifying against host oracles
 (tests/multihost_worker.py)."""

@@ -21,7 +21,7 @@ FULL_MATRIX = bool(os.environ.get("KMERUTILS_FULL_MATRIX"))
 
 def _mx(slim, extra):
     """Slim default (one config per regime); KMERUTILS_FULL_MATRIX=1
-    restores the full matrix (VERDICT r3 #6)."""
+    restores the full matrix."""
     return slim + extra if FULL_MATRIX else slim
 
 
@@ -149,7 +149,7 @@ class TestShardedStreamCounter:
         # two counters on the same mesh MUST reuse the same jitted
         # executables (a second instance used to re-trace and re-compile
         # the whole family — 29 s of duplicated compile CPU measured on
-        # the 2-process harness, SCALING.md round 4)
+        # the 2-process CPU harness)
         from kmerutils_tpu.count import stream
         from kmerutils_tpu.parallel import stream as pstream
         a = pstream.ShardedStreamCounter(mesh8, 1 << 12, depth=0)
@@ -212,8 +212,8 @@ class TestShardedStreamCounter:
         assert ctr.dropped_in_transit == generated - received
 
     def test_hint_every_sparse_sampling(self, rng, mesh8):
-        # pre-sized capacity + hint_every>1 (the scaling-tool configuration,
-        # SCALING.md round 4): the hint reduce fires sparsely and counts
+        # pre-sized capacity + hint_every>1 (the scaling-tool
+        # configuration): the hint reduce fires sparsely and counts
         # stay oracle-exact
         from kmerutils_tpu.parallel import stream as pstream
         all_reads = []
@@ -288,7 +288,7 @@ class TestShardedStream:
     @pytest.mark.parametrize("k,coords", _mx([(21, True)],
                                              [(13, False), (13, True)]))
     def test_matches_oracle_across_batches(self, rng, mesh8, k, coords):
-        # multi-chip streaming through the Pallas merge-fold tables: two
+        # multi-device streaming through the merge-fold tables: two
         # sequential batches, per-shard disjoint tables, host union ==
         # Counter oracle (+ first-occurrence coords)
         from jax.sharding import NamedSharding, PartitionSpec as P

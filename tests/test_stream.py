@@ -1,8 +1,5 @@
-"""Streaming count table (count/stream.py) + its Pallas machinery
-(ops/merge_pallas.py) against numpy / collections.Counter oracles.
-
-Kernels run in Pallas interpret mode on the CPU mesh (the real-TPU
-execution is exercised by bench.py and the CLI A/B drives)."""
+"""Streaming count table (count/stream.py) + its merge/aggregate passes
+(ops/merge.py) against numpy / collections.Counter oracles."""
 
 import collections
 import dataclasses
@@ -13,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from kmerutils_tpu.ops import merge_pallas as mp
+from kmerutils_tpu.ops import merge as mp
 from kmerutils_tpu.count import stream
 from kmerutils_tpu.base.sequence import pack_ascii_reads
 from kmerutils_tpu.base import kmer as kmer_mod
@@ -21,9 +18,8 @@ from kmerutils_tpu.base import kmer as kmer_mod
 RNG = np.random.default_rng(42)
 COMP = str.maketrans("ACGT", "TGCA")
 
-# Default matrices keep one representative config per kernel family /
-# regime (the interpret-mode Pallas calls dominate suite wall, VERDICT r3
-# #6); KMERUTILS_FULL_MATRIX=1 restores the full coverage matrix.
+# Default matrices keep one representative config per op family / regime;
+# KMERUTILS_FULL_MATRIX=1 restores the full coverage matrix.
 FULL_MATRIX = bool(os.environ.get("KMERUTILS_FULL_MATRIX"))
 
 
@@ -32,7 +28,6 @@ def _mx(slim, extra):
 
 
 def _rand_sorted(n, ncmp, narr, max_key=2**32):
-    # real entries must not be all-zero across cmp words (kernel contract)
     arrs = [RNG.integers(1, max_key, n, dtype=np.uint64).astype(np.uint32)]
     for _ in range(narr - 1):
         arrs.append(RNG.integers(0, 2**32, n, dtype=np.uint64)
@@ -44,19 +39,18 @@ def _rand_sorted(n, ncmp, narr, max_key=2**32):
     return [a[order] for a in arrs]
 
 
-@pytest.mark.parametrize("na,nb,ncmp,narr,window", _mx([
-    (1000, 777, 1, 1, 4096),
-    (5000, 3000, 2, 2, 4096),
-    (2048, 0, 1, 2, 4096),
+@pytest.mark.parametrize("na,nb,ncmp,narr", _mx([
+    (1000, 777, 1, 1),
+    (5000, 3000, 2, 2),
+    (2048, 0, 1, 2),
 ], [
-    (300, 20000, 2, 4, 8192),
+    (300, 20000, 2, 4),
 ]))
-def test_merge_sorted_u32(na, nb, ncmp, narr, window):
+def test_merge_sorted_u32(na, nb, ncmp, narr):
     A = _rand_sorted(na, ncmp, narr)
     B = _rand_sorted(nb, ncmp, narr)
     outs = [np.asarray(o) for o in
-            mp.merge_sorted_u32(tuple(A), tuple(B), ncmp=ncmp,
-                                window=window)]
+            mp.merge_sorted_u32(tuple(A), tuple(B), ncmp=ncmp)]
 
     def packkey(arrs):
         p = arrs[0].astype(np.uint64)
@@ -75,7 +69,7 @@ def test_merge_sorted_u32(na, nb, ncmp, narr, window):
         else:
             # ties may reorder whole entries; compare as multisets
             assert np.array_equal(np.sort(exp), np.sort(got))
-    assert np.all(outs[0][total:] == 0xFFFFFFFF)
+    assert all(o.shape == (total,) for o in outs)
 
 
 def test_merge_payload_entries_travel_together():
@@ -90,44 +84,19 @@ def test_merge_payload_entries_travel_together():
     cnt_b = RNG.integers(1, 1000, m).astype(np.uint32)
     pay_b = key_b * np.uint32(7) + cnt_b
     outs = [np.asarray(o) for o in
-            mp.merge_sorted_u32(A, (key_b, cnt_b, pay_b), ncmp=2,
-                                window=4096)]
+            mp.merge_sorted_u32(A, (key_b, cnt_b, pay_b), ncmp=2)]
     live = outs[0] != 0xFFFFFFFF
     assert np.array_equal(outs[2][live],
                           outs[0][live] * np.uint32(7) + outs[1][live])
 
 
-@pytest.mark.parametrize("m,narr,tile,frac", _mx([
-    (1000, 1, 1024, 0.5),
-    (5000, 3, 1024, 0.1),
-], [
-    (4096, 2, 2048, 1.0),
-    (10000, 2, 1024, 0.0),
-]))
-def test_compact_live_u32(m, narr, tile, frac):
-    keys = RNG.integers(0, 2**31, m, dtype=np.uint64).astype(np.uint32)
-    live = RNG.random(m) < frac
-    keys[~live] = 0xFFFFFFFF
-    arrs = [keys] + [RNG.integers(0, 2**32, m, dtype=np.uint64)
-                     .astype(np.uint32) for _ in range(narr - 1)]
-    outs, n_live = mp.compact_live_u32(tuple(arrs), tile=tile)
-    n_live = int(n_live)
-    assert n_live == int(live.sum())
-    for a, o in zip(arrs, outs):
-        o = np.asarray(o)
-        assert np.array_equal(o[:n_live], a[live])     # stable order
-        assert np.all(o[n_live:m] == 0xFFFFFFFF)
-
-
-def _to_persistent(arrs_u32, ncmp, capacity, window, garbage_tail=False):
-    """Raw sorted u32 entry arrays -> the kernel-native persistent table
-    form (count/stream.py layout): flipped cmp words, physical length
-    (n_tiles+2)*T.  With ``garbage_tail`` the region past the live prefix
-    holds RANDOM values (the production state after a compaction) — the
-    kernels must never read it as data."""
-    T = window - 2048
-    n_tiles = -(-capacity // T)
-    lp = (n_tiles + 2) * T
+def _to_persistent(arrs_u32, ncmp, capacity, garbage_tail=False):
+    """Raw sorted u32 entry arrays -> the persistent table form
+    (count/stream.py layout): flipped cmp words, length ``capacity``.  With
+    ``garbage_tail`` the region past the live prefix holds RANDOM values
+    (the production state after a compaction) — the ops must never read it
+    as data."""
+    lp = capacity
     out = []
     for j, x in enumerate(arrs_u32):
         if garbage_tail:
@@ -142,42 +111,28 @@ def _to_persistent(arrs_u32, ncmp, capacity, window, garbage_tail=False):
     return tuple(out)
 
 
-def _to_batch_kernel(arrs_u32, ncmp, window, nb_total=None):
-    """Raw sorted u32 batch arrays -> the fold kernel's b-side form:
-    flipped cmp words, padded to a 1024-multiple plus one window of
-    sentinels, reversed."""
-    nb = nb_total if nb_total is not None else len(arrs_u32[0])
-    nb_p = -(-nb // 1024) * 1024
-    out = []
-    for j, x in enumerate(arrs_u32):
-        full = np.full(nb_p + window, 0xFFFFFFFF, np.uint32)
-        full[:len(x)] = x
-        if j < ncmp:
-            full ^= np.uint32(0x80000000)
-        out.append(jnp.asarray(full[::-1].copy().view(np.int32)))
-    return tuple(out)
-
-
-@pytest.mark.parametrize("used,nb,ncmp,narr,capacity,window", _mx([
-    (5000, 3000, 2, 3, 6000, 4096),
-    (900, 800, 1, 2, 1024, 4096),      # past capacity (overhang region)
-    (0, 500, 2, 5, 4000, 4096),        # empty table
-    (1200, 0, 1, 2, 4000, 4096),       # empty batch
+@pytest.mark.parametrize("used,nb,ncmp,narr,capacity", _mx([
+    (5000, 3000, 2, 3, 9000),
+    (900, 800, 1, 2, 1024),            # past capacity: largest keys drop
+    (0, 500, 2, 5, 4000),              # empty table
+    (1200, 0, 1, 2, 4000),             # empty batch
 ], [
-    (1000, 777, 1, 2, 5000, 4096),
-    (300, 2000, 1, 4, 4000, 4096),
-    (15000, 9000, 1, 2, 30000, 4096),  # 15 tiles: long double-buffer chain
+    (1000, 777, 1, 2, 5000),
+    (300, 2000, 1, 4, 4000),
+    (15000, 9000, 1, 2, 30000),
 ]))
-def test_merge_fold_i32(used, nb, ncmp, narr, capacity, window):
-    # keys in [1, 2^32-16): off the all-zeros fake and all-ones sentinel
+def test_merge_fold_i32(used, nb, ncmp, narr, capacity):
+    # keys in [1, 2^32-16): off the all-ones sentinel
     A = _rand_sorted(used, ncmp, narr, max_key=2**32 - 16) if used else \
         [np.zeros(0, np.uint32)] * narr
     B = _rand_sorted(nb, ncmp, narr, max_key=2**32 - 16) if nb else \
         [np.zeros(0, np.uint32)] * narr
-    a_in = _to_persistent(A, ncmp, capacity, window, garbage_tail=True)
-    b_in = _to_batch_kernel(B, ncmp, window)
-    outs = mp.merge_fold_i32(a_in, b_in, used, nb, ncmp=ncmp,
-                             capacity=capacity, window=window)
+    a_in = _to_persistent(A, ncmp, capacity, garbage_tail=True)
+    # the batch side travels raw (count/stream.batch_entries), with a
+    # dead all-ones tail that must never reach the table
+    b_in = tuple(jnp.asarray(np.concatenate(
+        [x, np.full(64, 0xFFFFFFFF, np.uint32)])) for x in B)
+    outs = mp.merge_fold_i32(a_in, b_in, used, ncmp=ncmp)
 
     def packkey(arrs):
         p = arrs[0].astype(np.uint64)
@@ -187,9 +142,7 @@ def test_merge_fold_i32(used, nb, ncmp, narr, capacity, window):
 
     order = np.argsort(np.concatenate([packkey(A), packkey(B)]),
                        kind="stable")
-    T = window - 2048
-    n_tiles = -(-capacity // T)
-    valid = min(used + nb, n_tiles * T)       # kernel-guaranteed prefix
+    valid = min(used + nb, capacity)          # guaranteed merged prefix
     for j in range(narr):
         got = np.asarray(outs[j])[:valid].view(np.uint32)
         if j < ncmp:
@@ -199,24 +152,18 @@ def test_merge_fold_i32(used, nb, ncmp, narr, capacity, window):
         else:
             exp = np.concatenate([A[j], B[j]])[order][:valid]
             assert np.array_equal(np.sort(exp), np.sort(got))
-    # sentinel fill between the live prefix and the end of the LAST LIVE
-    # tile; wholly-dead tiles skip their output DMA entirely (round 3:
-    # fold output cost scales with occupancy, not capacity) and keep
-    # whatever the buffer held — every consumer masks by `used`
-    live_tiles = -(-valid // T) if valid else 0
-    key0 = np.asarray(outs[0])[:live_tiles * T]
-    assert np.all(key0[valid:] == 0x7FFFFFFF)
+    assert all(np.asarray(o).shape == (capacity,) for o in outs)
 
 
-@pytest.mark.parametrize("n,kw,coords,lo,hi,tile,capacity,window", _mx([
-    (5000, 2, True, 2, 5, 1024, 6000, 4096),
-    (0, 1, False, 1, None, 1024, 4000, 4096),
-    (4096, 1, False, 1, None, 2048, 4096, 4096),   # used == s_phys edge
+@pytest.mark.parametrize("n,kw,coords,lo,hi,capacity", _mx([
+    (5000, 2, True, 2, 5, 6000),
+    (0, 1, False, 1, None, 4000),
+    (4096, 1, False, 1, None, 4096),   # used == capacity edge
 ], [
-    (3000, 1, False, 1, None, 1024, 4000, 4096),
-    (3000, 1, True, 1, None, 1024, 4000, 4096),
+    (3000, 1, False, 1, None, 4000),
+    (3000, 1, True, 1, None, 4000),
 ]))
-def test_aggregate_fold_i32(n, kw, coords, lo, hi, tile, capacity, window):
+def test_aggregate_fold_i32(n, kw, coords, lo, hi, capacity):
     narr = kw + 1 + (2 if coords else 0)
     # duplicate-heavy sorted keys; counts near saturation sometimes
     key = np.sort(RNG.integers(1, max(n // 4, 2), n).astype(np.uint32))
@@ -235,10 +182,9 @@ def test_aggregate_fold_i32(n, kw, coords, lo, hi, tile, capacity, window):
         arrs.append(RNG.integers(0, 2**32, n, dtype=np.uint64)
                     .astype(np.uint32))
     # garbage_tail: the kernel must decide liveness by `used`, not content
-    a_in = _to_persistent(arrs, kw, capacity, window, garbage_tail=True)
+    a_in = _to_persistent(arrs, kw, capacity, garbage_tail=True)
     outs, n_live = mp.aggregate_fold_i32(
-        tuple(a_in), n, kw=kw, coords=coords, capacity=capacity,
-        window=window, lo=lo, hi=hi, tile=tile)
+        tuple(a_in), n, kw=kw, coords=coords, lo=lo, hi=hi)
     n_live = int(n_live)
 
     # numpy oracle
@@ -320,16 +266,15 @@ def test_stream_table_vs_counter(k, coords):
 
 
 def test_fold_empty_batch_grid_zero():
-    """An all-dead batch folded into an EMPTY table drives the dynamic
-    live-tile grid to 0 (round 4): the kernel must never launch and the
-    table must stay exactly usable afterwards."""
+    """An all-dead batch folded into an EMPTY table must leave it empty
+    and exactly usable afterwards."""
     k = 16
     table = stream.StreamCountTable.create(1 << 13, wide=False, coords=False)
     reads = _random_reads(6, 60, 200)
     batch = pack_ascii_reads(reads)
     arrs, live = stream.batch_entries(batch, k, 0, coords=False)
     dead = tuple(jnp.full_like(a, 0xFFFFFFFF) for a in arrs)
-    table = stream.fold(table, dead, jnp.zeros_like(live))   # grid == 0
+    table = stream.fold(table, dead, jnp.zeros_like(live))
     assert int(np.asarray(table.used)) == 0
     table = stream.fold(table, arrs, live)                   # then real data
     keys, counts, _, _, dropped = stream.finalize(table)

@@ -1,9 +1,9 @@
 """1-process vs 2-process CPU-mesh throughput of the PRODUCTION streaming
 count path — the testable slice of BASELINE's >= 80% 2-host scaling target
-(no second TPU host exists here; the process boundary on the 8-device CPU
-mesh plays the DCN role, exactly like tests/test_multihost.py).
+(the process boundary on the 8-device CPU mesh plays the inter-host role,
+exactly like tests/test_multihost.py).
 
-Runs the same ShardedStreamCounter workload (exchange + staged Pallas folds)
+Runs the same ShardedStreamCounter workload (exchange + staged folds)
 over one 8-device mesh owned by 1 process and by 2 processes (4 devices
 each), prints Mkmers/s for both and the ratio.
 
@@ -14,20 +14,17 @@ OVERHEAD the process/DCN boundary adds to the production path
 (distributed dispatch, cross-process collectives); >= 0.8 means the
 boundary costs < 25% on a compute-dominated stream, which is the
 single-machine-testable component of the BASELINE 2-host claim (the rest
-— real ICI/DCN bandwidth — needs real second hardware).
+— real inter-host bandwidth — needs a second host).
 
-The workload is sized to be COMPUTE-dominated (VERDICT r3: the old
-64-read x 1024 b batches measured per-call interpret-mode dispatch, not
-throughput): 512 reads x 2048 b per batch sampled from a 100 kb genome
-(bounded ~100k distinct 13-mers -> zero drops at 1<<16/device, realistic
-duplicate mixes in every fold).
+The workload is sized to be COMPUTE-dominated (small batches measure
+per-call dispatch, not throughput): 512 reads x 2048 b per batch sampled
+from a 100 kb genome (bounded ~100k distinct 13-mers -> zero drops at
+1<<16/device, realistic duplicate mixes in every fold).
 
-After running, paste the printed markdown rows into SCALING.md (§2-host
-scaling) — that file carries the recorded numbers.
+It prints markdown rows for a results table.
 
-Usage:  PYTHONPATH=/root/repo:$PYTHONPATH python tools/multihost_scaling.py
-        (spawns its own workers; ~10-20 min on the 1-core box, dominated
-        by interpret-mode fold compute — that is the point)
+Usage:  PYTHONPATH=. python tools/multihost_scaling.py
+        (spawns its own workers)
 
 Worker mode (internal): multihost_scaling.py worker <pid> <nproc> <port>
 """
@@ -190,7 +187,7 @@ def main():
     print(f"CPU-work ratio (c1/c2):   {c1 / c2:.3f}  "
           f"(boundary's true added work; target >= 0.8)", flush=True)
     kmers = N_BATCH * N_READS * (READ_LEN - K + 1) / 1e6
-    print("\nmarkdown rows for SCALING.md:")
+    print("\nmarkdown rows:")
     print(f"| 1 process x 8 devices | {r1:.3f} Mkmers/s | {w1:.1f} s wall |"
           f" {c1:.1f} CPU-s |")
     print(f"| 2 processes x 4 devices | {r2:.3f} Mkmers/s | {w2:.1f} s wall"
